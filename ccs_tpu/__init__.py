@@ -1,13 +1,14 @@
-"""ccs_tpu — TPU-native circular consensus sequencing (HiFi) engine.
+"""ccs_tpu — circular consensus sequencing (HiFi) engine on an accelerator.
 
 A from-scratch re-implementation of the capabilities of PacBio's closed-source
-``ccs`` tool (reference docs surveyed in SURVEY.md), designed TPU-first:
+``ccs`` tool (reference docs surveyed in SURVEY.md), built around a batched
+device polish:
 
 - host side: BAM/pbi/FASTQ I/O, windowing bookkeeping, stitching, reports
-- device side: batched JAX/Pallas DP kernels (alignment, Arrow-style pair-HMM
-  forward/backward, mutation scoring) over thousands of ZMWs per chip
+- device side: batched JAX DP programs (Arrow-style pair-HMM
+  forward/backward, mutation scoring) over thousands of ZMWs per device
 - scale-out: data-parallel ZMW sharding over a ``jax.sharding.Mesh``
-  (the TPU analog of ``ccs --chunk`` + merge; /root/reference/docs/faq/parallelize.md:7-29)
+  (the device analog of ``ccs --chunk`` + merge; docs/faq/parallelize.md:7-29)
 """
 
 __version__ = "0.1.0"

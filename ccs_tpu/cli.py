@@ -42,7 +42,8 @@ logger = logging.getLogger("ccs_tpu")
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ccs_tpu",
-        description="TPU-native circular consensus sequencing (HiFi) engine")
+        description="circular consensus sequencing (HiFi) engine on an "
+                    "accelerator")
     p.add_argument("input", help="subreads.bam (or - with --streamed)")
     p.add_argument("output", help="out.bam | out.fastq.gz | out.consensusreadset.xml")
     p.add_argument("--min-snr", type=float, default=2.5)
@@ -94,9 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tpu-host-id", type=int, default=0,
                    help="this host's rank in 0..N-1 (with --tpu-num-hosts)")
     p.add_argument("--tpu-coordinator", type=str, default=None,
-                   help="host:port for jax.distributed (TPU pod slices); "
-                        "optional — coordination falls back to the shared "
-                        "filesystem")
+                   help="host:port for jax.distributed across the hosts "
+                        "or processes of a run; optional — coordination "
+                        "falls back to the shared filesystem")
     p.add_argument("--tpu-stats-delta", type=str, default=None,
                    help=argparse.SUPPRESS)  # internal: multihost child dump
     p.add_argument("--tpu-profile-dir", type=str, default=None,
@@ -256,9 +257,6 @@ def fail_record(res: ConsensusResult,
 
 def run(argv: Optional[list[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.tpu_num_hosts > 1 and args.tpu_stats_delta is None:
-        from ccs_tpu.parallel.multihost import run_multihost
-        return run_multihost(args, list(argv or sys.argv[1:]), run)
     cfg = config_from_args(args)
     level = getattr(logging, cfg.log_level.upper(), logging.WARNING)
     log_kwargs = {"filename": cfg.log_file} if cfg.log_file \
@@ -284,6 +282,9 @@ def run(argv: Optional[list[str]] = None) -> int:
             if isinstance(h, logging.StreamHandler) and not cfg.log_file:
                 root.removeHandler(h)
         root.addHandler(handler)
+    if args.tpu_num_hosts > 1 and args.tpu_stats_delta is None:
+        from ccs_tpu.parallel.multihost import run_multihost
+        return run_multihost(args, list(argv or sys.argv[1:]), run)
 
     out = cfg.output
     prefix = out
@@ -519,8 +520,10 @@ def run(argv: Optional[list[str]] = None) -> int:
     return 0
 
 
-def main() -> None:
-    sys.exit(run())
+def main(argv: Optional[list[str]] = None) -> None:
+    from ccs_tpu.compile_cache import configure_compile_cache
+    configure_compile_cache()
+    sys.exit(run(argv))
 
 
 if __name__ == "__main__":

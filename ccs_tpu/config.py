@@ -1,8 +1,8 @@
-"""CCS configuration: the reference CLI flag surface plus TPU-only knobs.
+"""CCS configuration: the reference CLI flag surface plus engine knobs.
 
 Flag names/defaults mirror the reference exactly (SURVEY.md §2.4; evidence:
 /root/reference/docs/index.md:52-64, how-does-ccs-work.md, sqiie.md:33-47).
-TPU-specific knobs are namespaced ``tpu_*`` so the reference surface stays
+Engine-specific knobs are namespaced ``tpu_*`` so the reference surface stays
 unchanged.
 """
 
@@ -70,22 +70,17 @@ class CcsConfig:
                                             # (accuracy-vs-passes.md:31-39)
     heteroduplex_min_len: int = 21  # strand diff > 20 bp fails the ZMW
 
-    # --- TPU-only knobs (namespaced; SURVEY.md §5 config row) ---
+    # --- engine knobs (namespaced; SURVEY.md §5 config row) ---
     # template buffer per window: core (<= size + repeat shift 8) + 2*overlap
     # margins + growth slack for insertion mutations during polish. The
-    # scorer's loops run to each 128-window block's max tlen / live-lane
-    # count (SMEM scalars), so the static caps only size scratch — actual
-    # kernel time tracks the real window sizes (~30), not the caps.
+    # scorer's work scales with the caps, not with the real window sizes
+    # (~30), since every window is padded to them.
     tpu_window_tpl_cap: int = 44
     tpu_window_read_cap: int = 39      # padded read-slice length per window
-                                       # (sets the kernel sublane extent
-                                       # S = R+1 rounded to 8: 39 -> S=40;
-                                       # every bridge vec-op scales with S,
-                                       # and window slices are <= ~38 bases
-                                       # so 47 was pure padding waste)
+                                       # (every column and bridge op runs
+                                       # over R+1 = 40 read positions;
+                                       # window slices are <= ~38 bases)
     tpu_window_coverage_cap: int = 32  # max subread slices polished per window
-    tpu_polish_k: int = 12             # candidate positions scored per polish
-                                       # iteration (legacy dense-loop knob)
     # fixed-shape bucket grid: every device polish call uses one of these
     # (window count x coverage lanes) shapes, so a full run compiles a small
     # closed set of programs (SURVEY §7 hard-part 5)
@@ -100,12 +95,6 @@ class CcsConfig:
                                              # (fail-reads.md 0x2); falls back
                                              # to $SMRT_CHEMISTRY_BUNDLE_DIR/controls.fasta
     tpu_band_width: int = 128          # banded full-length alignment band
-    tpu_tail_bucket: int = 128         # in-jit compaction cascade: the
-                                       # polish loop gathers still-active
-                                       # windows into sub-batches (B/2, B/8,
-                                       # this) as they fit, so re-score cost
-                                       # tracks the active count (measured
-                                       # best at 128 on v5e)
     tpu_use_pw: bool = True            # condition the polisher on pulse
                                        # widths when the input carries them
                                        # (how-does-ccs-work.md:88-95)

@@ -9,7 +9,7 @@ a default model with the same *structure* (16 dinucleotide contexts × SNR bins)
 whose values are set to plausible SMRT error rates and can be re-fitted from
 data (SURVEY.md §7 hard-part 6).
 
-Generative model (our own design, TPU-first; structurally the documented
+Generative model (our own design; structurally the documented
 left-right Arrow HMM):
 
 At template position ``j`` with dinucleotide context ``ctx = 4*t[j-1] + t[j]``

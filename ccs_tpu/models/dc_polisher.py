@@ -5,7 +5,7 @@ On Revio, low-quality windows from the GPU Arrow polish (30-70% of windows
 in a typical human WGS run) are refined by a learned model, `rq` is the mean
 of the model's QVs on processed windows plus the Arrow QVs on unprocessed
 ones, and the refined sequence is re-scored by Arrow for the final per-base
-QVs (/root/reference/docs/faq/revio.md:29-53). This module is the TPU-native
+QVs (docs/faq/revio.md:29-53). This module is the device
 analog:
 
 - **Features**: everything the fused Arrow scorer already computed — the
@@ -14,9 +14,8 @@ analog:
   homopolymer run length, and the template base one-hot, plus a +-2 position
   context window. No second pass over the reads is needed.
 - **Model**: a per-position MLP over the context-stacked features — dense
-  [B*T, F] x [F, H] matmuls, i.e. MXU work (the Arrow DP itself is VPU
-  work; this is the one place the systolic array earns its keep). Output
-  head: 10-way correction decision per position (keep / substitute x4 /
+  [B*T, F] x [F, H] matmuls at full float32 precision (the Arrow DP itself
+  is elementwise work). Output head: 10-way correction decision per position (keep / substitute x4 /
   delete / insert-after x4) and a recalibrated per-position error logit.
 - **What it measurably earns (round-4 honesty)**: on data generated by the
   exact scoring HMM, Arrow's decisions are already maximum-likelihood;
@@ -198,13 +197,21 @@ def _stack_context(feats, ctx: int):
 
 
 def dc_forward(tree: dict, feats, ctx: int):
-    """Model forward: (class logits [B,T,10], error logit [B,T])."""
+    """Model forward: (class logits [B,T,10], error logit [B,T]).
+
+    The matmuls ask for HIGHEST precision: a float32 matmul may otherwise
+    run as TF32 on a GPU, and the error logit feeds the rq stream's QVs."""
+    import jax
     import jax.numpy as jnp
+
+    def mm(a, w):
+        return jnp.matmul(a, w, precision=jax.lax.Precision.HIGHEST)
+
     x = _stack_context(feats, ctx)
-    h = jnp.tanh(x @ tree["w1"] + tree["b1"])
-    h = jnp.tanh(h @ tree["w2"] + tree["b2"])
-    return h @ tree["w_cls"] + tree["b_cls"], \
-        (h @ tree["w_err"] + tree["b_err"])[..., 0]
+    h = jnp.tanh(mm(x, tree["w1"]) + tree["b1"])
+    h = jnp.tanh(mm(h, tree["w2"]) + tree["b2"])
+    return mm(h, tree["w_cls"]) + tree["b_cls"], \
+        (mm(h, tree["w_err"]) + tree["b_err"])[..., 0]
 
 
 def apply_corrections(tpl, tlen, cs, ce, cls, allow,
@@ -246,8 +253,7 @@ def apply_corrections(tpl, tlen, cs, ce, cls, allow,
 def refine_chunk(tree: dict, ctx: int, tables: dict, state, qv,
                  reads, rlens, snr_bin,
                  qv_thresh: float = 25.0, conf_thresh: float = 2.0,
-                 allow_sub: bool = True,
-                 use_pallas: bool = False):
+                 allow_sub: bool = True):
     """Revio-shaped post-polish refinement of one window chunk
     (revio.md:29-53), jittable:
 
@@ -279,8 +285,7 @@ def refine_chunk(tree: dict, ctx: int, tables: dict, state, qv,
         processed, conf_thresh, allow_sub=allow_sub)
 
     def rescore(_):
-        lls2, ll2 = score_all(ntpl, nlen, snr_bin, reads, rlens, tables,
-                              use_pallas=use_pallas)
+        lls2, ll2 = score_all(ntpl, nlen, snr_bin, reads, rlens, tables)
         qv2, _pe = _qv_from_lls(lls2, ll2, ntpl, nlen)
         return qv2
 

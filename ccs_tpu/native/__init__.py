@@ -1,6 +1,6 @@
 """Native host kernels (C++ via ctypes).
 
-The runtime around the TPU compute path is native where the reference's is
+The runtime around the device compute path is native where the reference's is
 (SURVEY.md §2.3: the reference statically links SIMD-tuned C++ for its host
 work). The shared library is built on demand from the shipped source with
 the system toolchain and cached; set ``CCS_TPU_NO_NATIVE=1`` to force the

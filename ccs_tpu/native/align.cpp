@@ -5,9 +5,9 @@
 // the host-side bookkeeping aligner (backbone pileup for drafting, window
 // boundary mapping — the edlib/KSW2 role in the reference,
 // /root/reference/docs/how-does-ccs-work.md:41-55); the consensus itself
-// marginalizes over alignments in the pair-HMM on the TPU. The Python loop
-// version costs ~150 ms per 2 kb subread; this runs the same DP in ~1 ms,
-// keeping the host feeder ahead of the device polish.
+// marginalizes over alignments in the pair-HMM on the device. This runs the
+// DP of the Python loop version natively, to keep the host feeder ahead of
+// the device polish.
 //
 // Build: g++ -O3 -shared -fPIC -o libccsalign.so align.cpp
 

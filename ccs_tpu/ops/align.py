@@ -1,7 +1,7 @@
 """Pairwise alignment: banded edit-distance with traceback + k-mer chaining.
 
 Host-side equivalents of the reference's edlib/KSW2 usage
-(/root/reference/docs/how-does-ccs-work.md:41-55). Design note (TPU-first):
+(docs/how-does-ccs-work.md:41-55). Design note:
 base-exact full-length alignment is only used for *bookkeeping* — backbone
 pileup for drafting, window boundary mapping, coverage/insertion checks. The
 polishing itself marginalizes over alignments in the pair-HMM, so windows

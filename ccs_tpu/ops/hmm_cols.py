@@ -84,6 +84,17 @@ def _oh_pw(reads: jnp.ndarray, snr_bin: jnp.ndarray, tables: dict):
     return oh * fm[..., None], oh * fi[..., None]
 
 
+def contract4(oh: jnp.ndarray, vec4: jnp.ndarray) -> jnp.ndarray:
+    """sum_x oh[..., x] * vec4[..., x] over the 4 bases, as an elementwise
+    multiply-sum rather than an einsum.
+
+    ``oh`` is a scaled one-hot, so each sum has one nonzero term and the
+    result is the exact float32 product whatever the backend's matmul
+    precision (a float32 einsum may run as TF32 on a GPU, which would shift
+    every log-likelihood). XLA fuses it into the solve that consumes it."""
+    return jnp.sum(oh * vec4, axis=-1)
+
+
 def _solve_fwd(y: jnp.ndarray, a: jnp.ndarray) -> jnp.ndarray:
     """Exact prefix recurrence w[i] = y[i] + a[i]*w[i-1] along the last axis
     (length R+1) via doubling."""
@@ -137,7 +148,7 @@ def build_columns(tpl, tlen, snr_bin, reads, rlens, tables) -> HmmColumns:
 
     def emit_r(ohx, vec4):
         """[B,4] -> [B,C,R+1] with entry i = f_i * vec4[base_i], 0 at i=0."""
-        v = jnp.einsum("bcrx,bx->bcr", ohx, vec4)
+        v = contract4(ohx, vec4[:, None, None, :])
         return jnp.concatenate(
             [jnp.zeros_like(v[..., :1]), v], axis=-1)
 
@@ -423,8 +434,8 @@ def bridge_scores(reads, rlens, snr_bin, tables, columns: HmmColumns, ops,
             columns.ls_col, jnp.broadcast_to(s_c[:, None], (B, C, mc)), axis=2)
         for o in range(3):
             # per-read emission rows: [B,C,mc,R] then pad i=0
-            me_r = jnp.einsum("bcrx,bmx->bcmr", ohm, me_c[:, :, o])
-            ie_r = jnp.einsum("bcrx,bmx->bcmr", ohi, ie_c[:, :, o])
+            me_r = contract4(ohm[:, :, None], me_c[:, None, :, o, None])
+            ie_r = contract4(ohi[:, :, None], ie_c[:, None, :, o, None])
             z = jnp.zeros_like(me_r[..., :1])
             me_r = jnp.concatenate([z, me_r], axis=-1)
             ie_r = jnp.concatenate([z, ie_r], axis=-1)

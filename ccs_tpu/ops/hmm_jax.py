@@ -1,14 +1,14 @@
 """Batched Arrow pair-HMM forward pass in JAX (the device compute path).
 
-TPU-first design (SURVEY.md §7 hard-part 1): thousands of (window, subread)
+Batched design (SURVEY.md §7 hard-part 1): thousands of (window, subread)
 lanes run the same small DP in lock-step. The scan is over read positions;
 within a read row the template axis is fully vectorized — the delete chain
 (``alpha[i,j]`` depends on ``alpha[i,j-1]``) is a first-order linear
 recurrence solved exactly with ``jax.lax.associative_scan`` in log2(T) steps.
 
 Arithmetic is scaled-probability f32 (per-row renormalization with an
-accumulated log scale), which keeps the inner loop on cheap VPU ops instead of
-transcendental-heavy log-sum-exp. Validated against the log-space NumPy oracle
+accumulated log scale), which keeps the inner loop on cheap elementwise ops
+instead of transcendental-heavy log-sum-exp. Validated against the log-space NumPy oracle
 (tests/test_hmm.py).
 
 Shapes (static; host batcher pads):
@@ -107,10 +107,10 @@ def forward_batch(tpl: jnp.ndarray, tlen: jnp.ndarray, snr_bin: jnp.ndarray,
                   tables: dict) -> jnp.ndarray:
     """Batched forward log-likelihoods; see module docstring for shapes.
 
-    Scan formulation — the CPU/test oracle behind pipeline.polish (itself a
-    test oracle since round 3). The product TPU path is the fused
-    alpha/beta-bridging Pallas kernel (ops.hmm_score_pallas), which scores
-    the template AND all its mutations in one launch.
+    Scan formulation — the plain float32 reference behind pipeline.polish
+    and the brute-force check of the product scorer (the alpha/beta column
+    bridge of ops.hmm_cols, which scores the template AND all its
+    mutations in one call).
     """
     return _forward_batch_scan(tpl, tlen, snr_bin, reads, rlens, tables)
 

@@ -1,7 +1,7 @@
 """NumPy log-space oracle for the Arrow-style pair-HMM (SURVEY.md §4.2(1)).
 
 Slow, simple, obviously-correct reference implementation used to validate the
-batched JAX/Pallas kernels. Semantics defined in ccs_tpu.models.chemistry.
+batched JAX scorers. Semantics defined in ccs_tpu.models.chemistry.
 
 Indexing convention: ``alpha[i, j]`` = probability of having emitted the read
 prefix ``read[:i]`` and sitting at template position ``j`` (about to act on

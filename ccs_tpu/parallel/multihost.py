@@ -2,13 +2,13 @@
 
 The reference scales out with N independent processes over ``--chunk i/N``
 and offline merging (/root/reference/docs/faq/parallelize.md:7-29) — there
-is no runtime communication backend at all. The TPU-native equivalent keeps
+is no runtime communication backend at all. The device equivalent keeps
 that shape: every host runs the same program on its own .pbi-derived chunk
 with its own local device mesh, writes its records to a per-host temp BAM,
 and host 0 performs the merge (records + summary-stat deltas) into the
 final outputs. ``jax.distributed`` is initialized when a coordinator is
-given (a TPU pod slice), which also enables a cross-host psum sanity
-reduce of the yield counters over DCN; without it, coordination is purely
+given, which also enables a cross-host psum sanity reduce of the yield
+counters (NCCL between GPUs); without it, coordination is purely
 filesystem-based — the reference's own contract, and what keeps chunks
 independently restartable (SURVEY §5 failure row).
 
@@ -16,6 +16,13 @@ Usage (one process per host, shared filesystem):
 
     ccs_tpu in.bam out.bam --tpu-num-hosts 4 --tpu-host-id 2 \
         [--tpu-coordinator host:port]
+
+On one machine with several GPUs, run one process per card and give each
+only its own card, since a JAX process reserves most of the memory of every
+card it opens:
+
+    CUDA_VISIBLE_DEVICES=2 ccs_tpu in.bam out.bam --tpu-num-hosts 4 \
+        --tpu-host-id 2 --tpu-coordinator localhost:PORT
 
 Host i processes chunk i+1/N; host 0 waits for every host's sentinel and
 merges. The merged output is byte-identical (record-wise) to a single-host
@@ -49,10 +56,10 @@ class HostSpec:
 
 
 def init_distributed(spec: HostSpec) -> bool:
-    """Best-effort jax.distributed init (TPU pods / multi-process CPU).
+    """Best-effort jax.distributed init (multi-process GPU or CPU).
 
     Filesystem coordination below never depends on this; it only enables
-    the cross-host counter psum (P5 over DCN)."""
+    the cross-host counter psum (P5)."""
     if not spec.coordinator:
         return False
     try:
@@ -72,7 +79,7 @@ def init_distributed(spec: HostSpec) -> bool:
 
 def allreduce_counters(counters: np.ndarray, distributed: bool) -> np.ndarray:
     """Sum int64 counters across hosts via a psum over the global device
-    mesh (ICI within a slice, DCN across hosts). Identity when not
+    mesh (NCCL between GPUs). Identity when not
     distributed — the file-based merge covers the stats then.
 
     Exactness (VERDICT r3 weak 5): the counters stay integral end to end.
@@ -158,8 +165,8 @@ def run_multihost(args, argv: list[str], run_fn) -> int:
     with open(sent_i, "w") as fh:
         fh.write("done\n")
 
-    # P5: cross-host yield counters ride DCN when a pod is up (sanity
-    # mirror of the file-based stats merge)
+    # P5: cross-host yield counters ride a psum when jax.distributed is up
+    # (sanity mirror of the file-based stats merge)
     if distributed:
         with open(stats_i) as fh:
             d = json.load(fh)

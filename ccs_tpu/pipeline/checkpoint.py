@@ -3,7 +3,7 @@
 The reference's restart unit is the chunk (--chunk i/N + offline merge,
 /root/reference/docs/faq/parallelize.md:15-29) and it writes output through
 TMPDIR temp files merged at the end (changelog.md:47). This module gives the
-TPU build a finer restart unit: every flushed batch writes
+engine a finer restart unit: every flushed batch writes
 
     <dir>/batch_<i>.bam          the batch's output records
     <dir>/batch_<i>.stats.json   the batch's RunStats delta + metrics rows

@@ -3,16 +3,16 @@
 The reference smooths IO with ``--input-buffer``, spreads per-ZMW work over
 a ``-j`` thread pool, and writes output on a non-blocking writer thread
 (/root/reference/docs/faq/parallelize.md:17, changelog.md:67-68,47). The
-TPU-native equivalent is a four-stage pipeline:
+device equivalent is a four-stage pipeline:
 
     reader thread ──batches──> prepare pool (-j threads) ──items──>
         main thread (device polish) ──results──> writer thread
 
 - The reader stays ``--input-buffer`` batches ahead (BGZF decode overlaps
   compute).
-- ``prepare_batch`` (filters/draft/align/window) fans out over the -j
-  thread pool; the native aligner releases the GIL, so threads scale to
-  cores.
+- ``prepare_batch`` (filters/draft/align/window) fans out over -j spawn
+  worker processes (``pipeline.prepare``, which never imports jax), or over
+  a thread pool when ``tpu_prepare_processes`` is off.
 - The device phase stays on the main thread (one stream to the chip), and
   completed results stream to the writer thread so BAM/FASTQ encoding never
   blocks the next device dispatch.
@@ -28,27 +28,30 @@ import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable, Iterator
+from typing import TYPE_CHECKING, Callable, Iterable, Iterator
 
-from ccs_tpu.pipeline.engine import CcsEngine
+from ccs_tpu.pipeline.prepare import prepare_task
 from ccs_tpu.pipeline.zmw import ConsensusResult, ZmwInput
+
+if TYPE_CHECKING:
+    from ccs_tpu.pipeline.engine import CcsEngine
 
 _DONE = object()
 
 # cached spawn-based prepare pool (created once per process; spawn —
 # NOT fork — because the main process holds an initialized, multithreaded
 # jax runtime and forking it risks allocator/lock deadlocks in children).
-# Workers import only the numpy/native prepare path, never jax.
+# The task lives in pipeline.prepare, so workers never import jax.
 _PROC_POOL = None
 _PROC_POOL_SIZE = 0
 
 
-def _pp_task(zmws, cfg, params, control):
-    import time as _t
-    from ccs_tpu.pipeline.engine import prepare_many
-    t0 = _t.monotonic()
-    items = prepare_many(zmws, cfg, params, control)
-    return items, _t.monotonic() - t0
+def shutdown_prepare_pool() -> None:
+    """Stop the cached prepare worker processes, if any."""
+    global _PROC_POOL, _PROC_POOL_SIZE
+    if _PROC_POOL is not None:
+        _PROC_POOL.shutdown(wait=True)
+    _PROC_POOL, _PROC_POOL_SIZE = None, 0
 
 
 def _get_proc_pool(n: int):
@@ -64,7 +67,7 @@ def _get_proc_pool(n: int):
     return _PROC_POOL
 
 
-def run_pipeline(engine: CcsEngine,
+def run_pipeline(engine: "CcsEngine",
                  zmw_iter: Iterable[ZmwInput],
                  emit: Callable[[list[ConsensusResult], int], None],
                  batch_size: int = 1024,
@@ -130,20 +133,20 @@ def run_pipeline(engine: CcsEngine,
         # split each batch into contiguous sub-chunks across the pool
         # (order-preserving), forward the future list in order. Process
         # workers (default) sidestep the GIL serialization of prepare's
-        # Python share (~40% of thread-pool wall at -j2, measured); the
-        # thread pool remains as the fallback (tpu_prepare_processes=0).
+        # Python share; the thread pool remains as the fallback
+        # (tpu_prepare_processes=0).
         if use_procs:
             pool = _get_proc_pool(n_threads)
 
             def submit(chunk):
                 global _PROC_POOL
                 try:
-                    return pool.submit(_pp_task, chunk, engine.cfg,
+                    return pool.submit(prepare_task, chunk, engine.cfg,
                                        engine.params, engine.control)
                 except Exception:  # noqa: BLE001 — broken pool: one rebuild
                     _PROC_POOL = None
                     fresh = _get_proc_pool(n_threads)
-                    return fresh.submit(_pp_task, chunk, engine.cfg,
+                    return fresh.submit(prepare_task, chunk, engine.cfg,
                                         engine.params, engine.control)
 
             def run():

@@ -9,7 +9,7 @@ substituting one of the other three nucleotides, inserting one of four after
 the position, or deleting the position; apply the best improvement; repeat
 until no beneficial mutation remains.
 
-Batched TPU formulation: all windows (across ZMWs) advance in lock-step
+Batched device formulation: all windows (across ZMWs) advance in lock-step
 inside one ``lax.while_loop``; converged windows become no-ops via an active
 mask (SURVEY.md §7 design principles). Mutation scoring is a dense re-forward
 over [window × mutation × subread] lanes, chunked over mutations to bound

@@ -1,15 +1,14 @@
-"""Fused exhaustive polish loop (C8/C10) — the production TPU hot path.
+"""Fused exhaustive polish loop (C8/C10) — the production device hot path.
 
 Round-1 verdict: the candidate-gather polish loop (pipeline.polish) spent its
 time in XLA gathers over huge column tensors and recompiled per shape. This
-module replaces it with a TPU-first formulation:
+module replaces it with a static-shape formulation:
 
 - **Exhaustive enumeration**: every polish iteration scores ALL single-point
   mutations of every window via the alpha/beta column-bridging trick
   (ops.hmm_cols), so the mutation grid is static — no per-lane top-k gathers,
-  no data-dependent starts. On TPU the whole scorer is one fused Pallas
-  kernel (ops.hmm_score_pallas) that keeps the forward/backward column
-  matrices in VMEM.
+  no data-dependent starts. The scorer is plain XLA: the forward/backward
+  columns live in device memory between the column build and the bridge.
 - **Multi-apply**: all improving mutations that are >=3 template positions
   apart are applied in one iteration (the reference's engine applies batches
   of spaced mutations per round as well; convergence is still judged on the
@@ -65,15 +64,15 @@ CLEAN_PERR_V0 = _clean_perr_default()
 
 
 # ---------------------------------------------------------------------------
-# scoring: XLA fallback (CPU / oracle) via the tested hmm_cols bridge
+# scoring: the hmm_cols column bridge
 # ---------------------------------------------------------------------------
 
 def score_all_xla(tpl, tlen, snr_bin, reads, rlens, tables,
                   m_chunk: int = 64):
     """Score every mutation of the 9-kind enumeration: (lls [B, M], ll0 [B]).
 
-    Pure-XLA reference path, built on ops.hmm_cols (build_columns +
-    mutation_ops_at + bridge_scores). Invalid mutations are NEG.
+    Built on ops.hmm_cols (build_columns + mutation_ops_at +
+    bridge_scores). Invalid mutations are NEG.
     """
     from ccs_tpu.ops.hmm_cols import (bridge_scores, build_columns,
                                       mutation_ops_at, prepend_ops)
@@ -102,9 +101,8 @@ def score_all_xla(tpl, tlen, snr_bin, reads, rlens, tables,
 def mutation_valid_new(tpl, tlen):
     """Validity mask of the 9-kind enumeration: [B, 9T+4] bool.
 
-    All-static index structure — the earlier take_along_axis formulation
-    lowered to a per-element gather that cost ~ms per polish iteration on
-    TPU; jnp.repeat with a static repeat count is a free reshape."""
+    All-static index structure: jnp.repeat with a static repeat count is a
+    reshape, where a take_along_axis formulation lowers to a gather."""
     B, T = tpl.shape
     p = jnp.repeat(jnp.arange(T), KINDS)[None, :]
     k = jnp.tile(jnp.arange(KINDS), T)[None, :]
@@ -127,31 +125,18 @@ def expand_cand(cand):
         [reg, jnp.ones((B, 4), dtype=cand.dtype)], axis=1)
 
 
-def score_all(tpl, tlen, snr_bin, reads, rlens, tables,
-              use_pallas: bool = False, interpret: bool = False,
-              cand=None):
-    """Dispatch: fused Pallas kernel on TPU, hmm_cols bridge elsewhere.
+def score_all(tpl, tlen, snr_bin, reads, rlens, tables, cand=None):
+    """Score every mutation: (lls [B, 9T+4], ll0 [B]).
 
     ``cand`` [B, T] bool enables candidate-sparse scoring (C7,
     performance.md:90-93): only flagged positions carry mutation scores
-    (others are NEG-invalid); ll0 stays exact. On TPU the sparse kernel
-    skips the unflagged bridges (the documented >=2x); the XLA path scores
-    densely and masks, so both platforms produce identical semantics."""
+    (others are NEG-invalid); ll0 stays exact. The bridge still runs over
+    every position and the result is masked, so sparse mode saves
+    selection work, not scoring work."""
+    lls, ll0 = score_all_xla(tpl, tlen, snr_bin, reads, rlens, tables)
     if cand is None:
-        if use_pallas:
-            from ccs_tpu.ops.hmm_score_pallas import score_all_pallas
-            lls, ll0 = score_all_pallas(tpl, tlen, snr_bin, reads, rlens,
-                                        tables, interpret=interpret)
-            return jnp.where(mutation_valid_new(tpl, tlen), lls, NEG), ll0
-        return score_all_xla(tpl, tlen, snr_bin, reads, rlens, tables)
-    valid = mutation_valid_new(tpl, tlen) & expand_cand(cand)
-    if use_pallas:
-        from ccs_tpu.ops.hmm_score_pallas import score_sparse_pallas
-        lls, ll0 = score_sparse_pallas(tpl, tlen, snr_bin, reads, rlens,
-                                       cand, tables, interpret=interpret)
-    else:
-        lls, ll0 = score_all_xla(tpl, tlen, snr_bin, reads, rlens, tables)
-    return jnp.where(valid, lls, NEG), ll0
+        return lls, ll0
+    return jnp.where(expand_cand(cand), lls, NEG), ll0
 
 
 # ---------------------------------------------------------------------------
@@ -249,9 +234,8 @@ def apply_mutations(tpl, tlen, cs, ce, priority, sel, pkind, pre_sel,
     start = pre_applied[:, None].astype(jnp.int32) + jnp.cumsum(ec, -1) - ec
     newlen = (pre_applied.astype(jnp.int32) + ec.sum(-1)).astype(jnp.int32)
 
-    # One-hot contractions instead of scatters: TPU lowers arbitrary-index
-    # scatter via sort (miliseconds per polish iteration at [B, T] shapes);
-    # the equivalent [B, T, T] masked reduction is a few MB of VPU work.
+    # One-hot contractions instead of scatters: a [B, T, T] masked reduction
+    # (a few MB at [B, T] shapes) that XLA fuses, with no index scatter.
     pos1 = jnp.where(emit1, start, -1)
     pos2 = jnp.where(emit2, start + 1, -1)
     tgt = jnp.arange(T)[None, None, :]                   # [1, 1, T]
@@ -377,30 +361,14 @@ def clean_perr(tables, cov, snr_bin):
 def polish_windows_fused_impl(tpl, tlen, core_start, core_end, snr_bin,
                               reads, rlens, tables, max_iters: int = 40,
                               is_first=None, priority=None,
-                              use_pallas: bool = False,
-                              interpret: bool = False,
                               thresh: float = 0.02,
                               careful_after: int = 6,
-                              tail_bucket: int = 0,
                               sparse: bool = False):
     """Exhaustive multi-apply polish until no mutation improves.
 
     Same contract as pipeline.polish.polish_windows: returns
     (state, qv [B,T], p_err [B,T]). ``priority`` (C7) acts as a selection
-    mask; None = exhaustive.
-
-    ``tail_bucket`` > 0 enables IN-JIT compaction: ~97% of windows at
-    production shapes converge within 2-3 iterations, but a lock-step
-    while_loop would re-score the whole batch until the slowest window
-    finishes. Instead every iteration gathers the still-improving rows to
-    the FRONT of the batch (static-size jnp.nonzero permutation) before the
-    re-score and scatters the fresh scores back; converged rows land in
-    all-dead 128-lane blocks that the Pallas kernel skips via its
-    ``pl.when(Cm > 0)`` guard, so re-score cost tracks the active count at
-    128-row granularity. One compiled program, no host round-trip, no
-    dynamic shapes, bit-identical results — the batch-level analog of the
-    documented candidate-heuristic economics (faq/performance.md:90-93),
-    composing with shard_map (per-shard compaction)."""
+    mask; None = exhaustive."""
     B, T = tpl.shape
     if is_first is None:
         is_first = jnp.zeros(B, dtype=bool)
@@ -410,76 +378,35 @@ def polish_windows_fused_impl(tpl, tlen, core_start, core_end, snr_bin,
     j = jnp.arange(T)[None, :]
     priority = jnp.where(j < tlen[:, None], priority.astype(jnp.float32), 0.0)
 
-    def make_body(snr_b, reads_b, rlens_b, is_first_b):
-        def score(t, tl, pri, sb=None, rd=None, rl=None):
-            return score_all(t, tl,
-                             snr_b if sb is None else sb,
-                             reads_b if rd is None else rd,
-                             rlens_b if rl is None else rl, tables,
-                             use_pallas=use_pallas, interpret=interpret,
-                             cand=(pri > 0.0) if sparse else None)
+    def score(t, tl, pri):
+        return score_all(t, tl, snr_bin, reads, rlens, tables,
+                         cand=(pri > 0.0) if sparse else None)
 
-        def body(s, compact: bool = False):
-            sel, pkind, pre_sel, pre_base, _ = select_mutations(
-                s.lls, s.ll, s.priority, T, thresh=thresh)
-            sel &= s.active[:, None]
-            pre_sel &= s.active
-            ntpl, nlen, ncs, nce, npri, improved = apply_mutations(
-                s.tpl, s.tlen, s.core_start, s.core_end, s.priority, sel,
-                pkind, pre_sel, pre_base, is_first_b,
-                single=s.n_iter >= careful_after)
-            m = improved[:, None]
-            tpl2 = jnp.where(m, ntpl, s.tpl)
-            tlen2 = jnp.where(improved, nlen, s.tlen)
-            pri2 = jnp.where(m, npri, s.priority)
-            if not compact:
-                lls2, ll2 = score(tpl2, tlen2, pri2)
-            else:
-                # gather still-improving rows to the front before scoring:
-                # converged rows become all-dead trailing 128-lane blocks
-                # the kernel skips (pl.when guard), so re-score cost tracks
-                # the active count. Scatter the fresh scores back; rows not
-                # re-scored keep the lls of their (unchanged) template.
-                Bn = tpl2.shape[0]
-                # inv[i] = compacted slot of row i; idx[s] = source row of
-                # slot s. Both come from one cumsum + a 1-D int scatter —
-                # and results return via GATHER by inv (a row-scatter of
-                # [B, 9T+4] floats sort-lowers on TPU and dominated the
-                # loop; gathers don't).
-                inv = jnp.cumsum(improved.astype(jnp.int32)) - 1
-                slot = jnp.where(improved, inv, Bn)
-                idx = jnp.full(Bn, Bn, jnp.int32).at[slot].set(
-                    jnp.arange(Bn, dtype=jnp.int32), mode="drop")
-                idc = jnp.minimum(idx, Bn - 1)
-                ok = idx < Bn
+    def body(s):
+        sel, pkind, pre_sel, pre_base, _ = select_mutations(
+            s.lls, s.ll, s.priority, T, thresh=thresh)
+        sel &= s.active[:, None]
+        pre_sel &= s.active
+        ntpl, nlen, ncs, nce, npri, improved = apply_mutations(
+            s.tpl, s.tlen, s.core_start, s.core_end, s.priority, sel,
+            pkind, pre_sel, pre_base, is_first,
+            single=s.n_iter >= careful_after)
+        m = improved[:, None]
+        tpl2 = jnp.where(m, ntpl, s.tpl)
+        tlen2 = jnp.where(improved, nlen, s.tlen)
+        pri2 = jnp.where(m, npri, s.priority)
+        # every row is re-scored, converged ones included: the scorer has
+        # static shapes, so skipping rows would save no device work
+        lls2, ll2 = score(tpl2, tlen2, pri2)
+        return FusedPolishState(
+            tpl=tpl2, tlen=tlen2,
+            core_start=jnp.where(improved, ncs, s.core_start),
+            core_end=jnp.where(improved, nce, s.core_end),
+            ll=ll2, lls=lls2, active=improved,
+            n_iter=s.n_iter + s.active.astype(jnp.int32),
+            priority=pri2)
 
-                def g(a, fill=None):
-                    out = jnp.take(a, idc, axis=0)
-                    if fill is not None:
-                        shape = (Bn,) + (1,) * (out.ndim - 1)
-                        out = jnp.where(ok.reshape(shape), out,
-                                        jnp.asarray(fill, out.dtype))
-                    return out
-
-                lls_g, ll_g = score(g(tpl2), g(tlen2, 1), g(pri2, 0.0),
-                                    g(snr_b), g(reads_b, -1),
-                                    g(rlens_b, -1))
-                invc = jnp.clip(inv, 0, Bn - 1)
-                lls2 = jnp.where(improved[:, None],
-                                 jnp.take(lls_g, invc, axis=0), s.lls)
-                ll2 = jnp.where(improved, jnp.take(ll_g, invc), s.ll)
-            return FusedPolishState(
-                tpl=tpl2, tlen=tlen2,
-                core_start=jnp.where(improved, ncs, s.core_start),
-                core_end=jnp.where(improved, nce, s.core_end),
-                ll=ll2, lls=lls2, active=improved,
-                n_iter=s.n_iter + s.active.astype(jnp.int32),
-                priority=pri2)
-
-        return score, body
-
-    score0, body = make_body(snr_bin, reads, rlens, is_first)
-    lls0, ll0 = score0(tpl, tlen, priority)
+    lls0, ll0 = score(tpl, tlen, priority)
     has_cov = (rlens >= 0).any(-1)
     # a row enters the loop only if the initial scores contain an improving
     # mutation it would actually select — rows already at a local optimum
@@ -492,18 +419,11 @@ def polish_windows_fused_impl(tpl, tlen, core_start, core_end, snr_bin,
         active=has_cov & (sel0.any(-1) | pre0),
         n_iter=jnp.zeros(B, jnp.int32), priority=priority)
 
-    def cond_to(n_left):
-        def cond(s):
-            n_act = jnp.sum(s.active)
-            it = jnp.max(jnp.where(s.active, s.n_iter, 0))
-            return (n_act > n_left) & (it < max_iters)
-        return cond
+    def cond(s):
+        it = jnp.max(jnp.where(s.active, s.n_iter, 0))
+        return s.active.any() & (it < max_iters)
 
-    if not tail_bucket or B <= 128:
-        state = jax.lax.while_loop(cond_to(0), body, state)
-    else:
-        state = jax.lax.while_loop(cond_to(0),
-                                   lambda s: body(s, compact=True), state)
+    state = jax.lax.while_loop(cond, body, state)
     qv, p_err = _qv_from_lls(state.lls, state.ll, state.tpl, state.tlen)
     if sparse:
         # clean (non-candidate) positions carry no mutation scores; their
@@ -520,5 +440,5 @@ def polish_windows_fused_impl(tpl, tlen, core_start, core_end, snr_bin,
 
 polish_windows_fused = jax.jit(
     polish_windows_fused_impl,
-    static_argnames=("max_iters", "use_pallas", "interpret", "thresh",
-                     "careful_after", "tail_bucket", "sparse"))
+    static_argnames=("max_iters", "thresh",
+                     "careful_after", "sparse"))

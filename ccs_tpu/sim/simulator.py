@@ -146,6 +146,18 @@ def simulate_zmw(hole: int, insert_len: int, n_passes: int,
                   strands=strands, cx=cxs, snr=snr_arr, pws=pws)
 
 
+def zmw_input(z: SimZmw, movie: str = "m_sim"):
+    """The engine's ZmwInput for a simulated ZMW, with subread polymerase
+    coordinates laid out as write_subreads_bam lays them out (40-base
+    adapter gaps)."""
+    from ccs_tpu.pipeline.zmw import Subread, ZmwInput
+    subs, qpos = [], 0
+    for read, cx in zip(z.subreads, z.cx):
+        subs.append(Subread(seq=read, cx=cx, qs=qpos, qe=qpos + len(read)))
+        qpos += len(read) + 40
+    return ZmwInput(hole=z.hole, movie=movie, subreads=subs, snr=z.snr)
+
+
 def simulate_heteroduplex_zmw(hole: int, insert_len: int, n_passes: int,
                               ins_len: int = 30,
                               params: Optional[ArrowParams] = None,
@@ -218,3 +230,54 @@ def write_subreads_bam(path: str, zmws: list[SimZmw],
                 records.append(rec)
         voffs = list(w.voffsets)
     write_pbi(path + ".pbi", build_index_from_records(records, voffs))
+
+
+def simulate_window_batch(n_windows: int, cov: int, rng: np.random.Generator,
+                          params: Optional[ArrowParams] = None,
+                          t_cap: int = 44, r_cap: int = 39,
+                          snr_bin: int = 4):
+    """Polish-step inputs for ``n_windows`` real-shaped windows.
+
+    Each window is a 26-32 bp random template with 0-1 injected
+    substitutions, ``cov`` simulated read slices and the production
+    candidate priorities (C7) from a real pileup vote, as prepare_zmw
+    builds them. Rows are sorted by (candidate count, template length), as
+    the engine's chunk fill does. Returns the engine step's argument tuple
+    (tpl, tlen, cs, ce, snr_bin, reads, rlens, is_first, priority) as NumPy
+    arrays with production caps ``t_cap`` x ``r_cap``."""
+    from ccs_tpu.pipeline.draft import _pileup_consensus
+    from ccs_tpu.pipeline.windows import candidate_priority_from_stats
+
+    params = params or default_params()
+    tpl = np.full((n_windows, t_cap), -1, np.int8)
+    tlen = np.zeros(n_windows, np.int32)
+    reads = np.full((n_windows, cov, r_cap), -1, np.int8)
+    rlens = np.full((n_windows, cov), -1, np.int32)
+    priority = np.zeros((n_windows, t_cap), np.float32)
+    for b in range(n_windows):
+        tl = int(rng.integers(26, 33))
+        t = rng.integers(0, 4, tl).astype(np.int8)
+        corrupt = t.copy()
+        for _ in range(int(rng.integers(0, 2))):
+            p = int(rng.integers(0, tl))
+            corrupt[p] = (corrupt[p] + 1) % 4
+        tpl[b, :tl] = corrupt
+        tlen[b] = tl
+        for c in range(cov):
+            r = simulate_read(t, params, snr_bin, rng)[:r_cap]
+            reads[b, c, :len(r)] = r
+            rlens[b, c] = len(r)
+        rds = [reads[b, c, :rlens[b, c]] for c in range(cov) if rlens[b, c] > 0]
+        st = _pileup_consensus(corrupt, rds, want_stats=True)[4]
+        if st is not None and len(st) == tl:
+            priority[b, :tl] = candidate_priority_from_stats(corrupt, st)
+        else:
+            priority[b, :tl] = 1.0
+    order = np.lexsort((tlen, (priority > 0).sum(axis=1)))
+    tpl, tlen, reads, rlens, priority = (tpl[order], tlen[order],
+                                         reads[order], rlens[order],
+                                         priority[order])
+    cs = np.full(n_windows, 4, np.int32)
+    ce = tlen - 4
+    return (tpl, tlen, cs, ce, np.full(n_windows, snr_bin, np.int32), reads,
+            rlens, np.zeros(n_windows, bool), priority)

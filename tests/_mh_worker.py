@@ -4,25 +4,23 @@
 argv: host_id num_hosts coordinator in_bam out_bam
 
 Runs one host's share of a multihost CCS run with jax.distributed over the
-coordinator (CPU backend — same SPMD path as a TPU pod, DCN collectives
-included), then proves int64 counter exactness past 2^24 with a psum of
-2^40-scale values (VERDICT r3 weak 5)."""
+coordinator (CPU backend — the same multi-process path as a GPU host, with
+the cross-process collective included), then proves int64 counter
+exactness past 2^24 with a psum of 2^40-scale values."""
 
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
 
 
 def main() -> int:
     i, n, coord, in_bam, out_bam = sys.argv[1:6]
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     from ccs_tpu.cli import run
+    from ccs_tpu.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
 
     rc = run([in_bam, out_bam, "--tpu-num-hosts", n, "--tpu-host-id", i,
               "--tpu-coordinator", coord])

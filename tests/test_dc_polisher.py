@@ -40,6 +40,29 @@ class TestDcPolisher:
         assert m2.ctx == 1
         np.testing.assert_array_equal(m.w1, m2.w1)
 
+    def test_dc_forward_matches_numpy(self):
+        """The model forward (HIGHEST-precision matmuls) equals a float64
+        NumPy evaluation of the same MLP to float32 rounding."""
+        import jax.numpy as jnp
+        rng = np.random.default_rng(5)
+        m = dc.init_model(rng, hidden=16, ctx=2)
+        B, T = 3, 12
+        feats = rng.normal(0, 1, (B, T, dc.N_BASE_FEATS)).astype(np.float32)
+        cls, err = dc.dc_forward(m.tree(), jnp.asarray(feats), 2)
+        tr = {k: np.asarray(v, np.float64) for k, v in m.tree().items()}
+        f = feats.astype(np.float64)
+        x = np.concatenate(
+            [np.pad(f, ((0, 0), (max(-o, 0), max(o, 0)), (0, 0)))[
+                :, max(o, 0):max(o, 0) + T] for o in range(-2, 3)], axis=-1)
+        h = np.tanh(x @ tr["w1"] + tr["b1"])
+        h = np.tanh(h @ tr["w2"] + tr["b2"])
+        np.testing.assert_allclose(np.asarray(cls),
+                                   h @ tr["w_cls"] + tr["b_cls"],
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(np.asarray(err),
+                                   (h @ tr["w_err"] + tr["b_err"])[..., 0],
+                                   rtol=1e-4, atol=1e-5)
+
     def test_feature_shapes(self):
         import jax.numpy as jnp
         B, T = 4, 20

@@ -110,3 +110,29 @@ class TestColumns:
                                       np.asarray(s_dense.n_iter))
         np.testing.assert_allclose(np.asarray(qv_c), np.asarray(qv_d),
                                    rtol=1e-3, atol=0.2)
+
+
+@pytest.mark.parametrize("shape", ["column", "bridge"])
+def test_contract4_matches_highest_einsum(shape):
+    """The elementwise 4-base contraction equals a HIGHEST-precision einsum
+    for both of its call shapes (column emissions, bridge emissions)."""
+    import jax
+    from ccs_tpu.ops.hmm_cols import contract4
+    rng = np.random.default_rng(3)
+    B, C, R, M = 3, 4, 9, 5
+    base = rng.integers(-1, 4, (B, C, R))
+    oh = np.where(base[..., None] == np.arange(4), 1.0, 0.0)
+    oh = jnp.asarray((oh * rng.uniform(0.5, 1.5, (B, C, R, 1)))
+                     .astype(np.float32))
+    hi = jax.lax.Precision.HIGHEST
+    if shape == "column":
+        vec = jnp.asarray(rng.uniform(0, 1, (B, 4)).astype(np.float32))
+        got = contract4(oh, vec[:, None, None, :])
+        want = jnp.einsum("bcrx,bx->bcr", oh, vec, precision=hi)
+    else:
+        vec = jnp.asarray(rng.uniform(0, 1, (B, M, 4)).astype(np.float32))
+        got = contract4(oh[:, :, None], vec[:, None, :, None, :])
+        want = jnp.einsum("bcrx,bmx->bcmr", oh, vec, precision=hi)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-7, atol=0)

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 from ccs_tpu.models.chemistry import default_params
 from ccs_tpu.ops.hmm_jax import params_to_device
 from ccs_tpu.parallel.mesh import (device_put_sharded_batch, make_zmw_mesh,
-                                   shard_fused_polish)
+                                   psum_on_mesh, shard_fused_polish)
 from ccs_tpu.pipeline.polish_fused import polish_windows_fused
 from ccs_tpu.sim.simulator import simulate_read
 
@@ -48,6 +48,14 @@ def batch():
     return args, tables
 
 
+@pytest.mark.parametrize("platform,want", [("cpu", False), ("gpu", True)])
+def test_psum_rule(platform, want):
+    """The stats psum is off only on CPU meshes; GPU meshes reduce on the
+    mesh (NCCL)."""
+    from types import SimpleNamespace
+    assert psum_on_mesh([SimpleNamespace(platform=platform)] * 4) is want
+
+
 class TestMesh:
     def test_eight_devices_available(self):
         assert len(jax.devices()) >= 8
@@ -64,7 +72,7 @@ class TestMesh:
                                               is_first=args[7])
         # 8-way sharded
         mesh = make_zmw_mesh(8)
-        fn = shard_fused_polish(mesh, tables, max_iters=6)
+        fn = shard_fused_polish(mesh, tables, max_iters=6, use_psum=True)
         sharded = device_put_sharded_batch(mesh, args + (priority,))
         state8, qv8, stats = fn(*sharded)
         np.testing.assert_array_equal(np.asarray(state1.tpl),

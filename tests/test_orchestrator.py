@@ -1,6 +1,7 @@
 """P4 host pipelining: -j / --input-buffer have observable effects and the
 pipeline is order-deterministic (byte-identical output vs the serial path)."""
 
+import os
 import threading
 import time
 
@@ -125,3 +126,20 @@ def test_pipeline_propagates_errors(engine):
     with pytest.raises(RuntimeError, match="boom"):
         run_pipeline(engine, bad_iter(), lambda r, n: None, batch_size=2,
                      num_threads=1, input_buffer=1)
+
+
+def test_prepare_workers_stay_off_jax():
+    """The module the spawn prepare workers import (pipeline.prepare) and
+    the task they run never import jax, so a worker cannot open the
+    accelerator."""
+    import subprocess
+    import sys
+    code = ("import sys, pickle\n"
+            "from ccs_tpu.pipeline import prepare\n"
+            "from ccs_tpu.pipeline.orchestrator import run_pipeline\n"
+            "pickle.loads(pickle.dumps(prepare.prepare_task))\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert r.returncode == 0, r.stderr

@@ -1,17 +1,15 @@
-"""Tests for the fused exhaustive polish path (pipeline.polish_fused +
-ops.hmm_score_pallas): enumeration correctness vs brute-force forwards,
-kernel-vs-oracle equivalence (interpret mode), loop equivalence with the
-round-1 dense loop, and multi-apply bookkeeping."""
+"""Tests for the fused exhaustive polish path (pipeline.polish_fused over
+ops.hmm_cols): enumeration correctness vs brute-force forwards, sparse vs
+dense scoring, loop equivalence with the round-1 dense loop, and
+multi-apply bookkeeping."""
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
 
 from ccs_tpu.models.chemistry import default_params
 from ccs_tpu.ops.hmm_jax import _forward_batch_scan, params_to_device
 from ccs_tpu.pipeline.polish import apply_mutation, polish_windows
 from ccs_tpu.pipeline.polish_fused import (KINDS, apply_mutations,
-                                           mutation_valid_new,
                                            polish_windows_fused,
                                            score_all_xla, select_mutations)
 from ccs_tpu.sim.simulator import simulate_read
@@ -109,21 +107,6 @@ def test_prepend_scores_match_bruteforce():
             assert abs(float(ref[0]) - got) < 5e-3, (b, x)
 
 
-def test_pallas_kernel_interpret_matches_xla():
-    rng = np.random.default_rng(2)
-    (args, _) = _simulate_batch(rng, 5, 3, 18, 24, tl_range=(3, 15))
-    tpl, tlen, snr, reads, rlens = args
-    from ccs_tpu.ops.hmm_score_pallas import score_all_pallas
-    lls_x, ll0_x = score_all_xla(tpl, tlen, snr, reads, rlens, TABLES)
-    lls_p, ll0_p = score_all_pallas(tpl, tlen, snr, reads, rlens, TABLES,
-                                    interpret=True)
-    valid = np.asarray(mutation_valid_new(tpl, tlen))
-    np.testing.assert_allclose(np.asarray(ll0_x), np.asarray(ll0_p),
-                               atol=2e-3)
-    d = np.abs(np.where(valid, np.asarray(lls_x) - np.asarray(lls_p), 0.0))
-    assert d.max() < 5e-3
-
-
 def test_fused_loop_matches_dense_loop():
     rng = np.random.default_rng(3)
     (args, true) = _simulate_batch(rng, 10, 8, 28, 36, tl_range=(16, 23))
@@ -219,65 +202,60 @@ def test_fused_loop_recovers_template():
     assert not bool(np.asarray(st.active).any())
 
 
-def test_tail_compaction_matches_plain_loop():
-    """In-jit tail compaction (tail_bucket > 0, the product configuration)
-    must produce the identical final state/QVs as the plain lock-step
-    while_loop, including NON_CONVERGENT flags, with a dead (no-coverage)
-    row mixed in."""
-    rng = np.random.default_rng(11)
-    (args, _) = _simulate_batch(rng, 12, 6, 28, 36, tl_range=(14, 23))
-    tpl, tlen, snr, reads, rlens = args
-    rlens = rlens.at[3].set(-1)  # dead row: no coverage
-    cs = jnp.full(tpl.shape[0], 2, jnp.int32)
-    ce = tlen - 2
-    st_w, qv_w, _ = polish_windows_fused(tpl, tlen, cs, ce, snr, reads,
-                                         rlens, TABLES, max_iters=12)
-    st_c, qv_c, _ = polish_windows_fused(tpl, tlen, cs, ce, snr, reads,
-                                         rlens, TABLES, max_iters=12,
-                                         tail_bucket=4)
-    np.testing.assert_array_equal(np.asarray(st_w.tpl), np.asarray(st_c.tpl))
-    np.testing.assert_array_equal(np.asarray(st_w.tlen),
-                                  np.asarray(st_c.tlen))
-    np.testing.assert_array_equal(np.asarray(st_w.core_start),
-                                  np.asarray(st_c.core_start))
-    np.testing.assert_array_equal(np.asarray(st_w.core_end),
-                                  np.asarray(st_c.core_end))
-    np.testing.assert_array_equal(np.asarray(st_w.active),
-                                  np.asarray(st_c.active))
-    live = (np.asarray(rlens) >= 0).any(-1)
-    np.testing.assert_allclose(np.asarray(st_w.ll)[live],
-                               np.asarray(st_c.ll)[live], atol=1e-3)
-    np.testing.assert_allclose(np.asarray(qv_w)[live], np.asarray(qv_c)[live],
-                               rtol=1e-4, atol=1e-3)
-
-
-def test_sparse_pallas_kernel_interpret_matches_xla():
-    """CPU (interpret-mode) coverage of the candidate-sparse READ-PAIRED
-    kernel: bridged slots and ll0 must match the XLA oracle; unbridged
-    slots must come back exactly 0 (the caller masks them invalid)."""
+def test_sparse_scoring_matches_dense_at_flagged_slots():
+    """Candidate-sparse scoring (C7) on the XLA scorer: flagged positions
+    (and the prepends) carry exactly the dense scores, every other
+    per-position slot is NEG, and ll0 is the dense ll0."""
+    from ccs_tpu.pipeline.polish_fused import NEG, score_all
     rng = np.random.default_rng(7)
     (args, _) = _simulate_batch(rng, 5, 3, 18, 24, tl_range=(3, 15))
     tpl, tlen, snr, reads, rlens = args
-    from ccs_tpu.ops.hmm_score_pallas import score_sparse_pallas
     T = tpl.shape[1]
     cand = rng.random(tpl.shape) < 0.5
-    lls_x, ll0_x = score_all_xla(tpl, tlen, snr, reads, rlens, TABLES)
-    lls_s, ll0_s = score_sparse_pallas(tpl, tlen, snr, reads, rlens,
-                                       jnp.asarray(cand), TABLES,
-                                       interpret=True)
-    np.testing.assert_allclose(np.asarray(ll0_x), np.asarray(ll0_s),
+    lls_d, ll0_d = score_all(tpl, tlen, snr, reads, rlens, TABLES)
+    lls_s, ll0_s = score_all(tpl, tlen, snr, reads, rlens, TABLES,
+                             cand=jnp.asarray(cand))
+    lls_d, lls_s = np.asarray(lls_d), np.asarray(lls_s)
+    np.testing.assert_array_equal(np.asarray(ll0_s), np.asarray(ll0_d))
+    flagged = np.concatenate([np.repeat(cand, KINDS, axis=1),
+                              np.ones((cand.shape[0], 4), bool)], axis=1)
+    np.testing.assert_array_equal(lls_s[flagged], lls_d[flagged])
+    assert np.all(lls_s[~flagged] == NEG)
+    assert (lls_s[:, :KINDS * T] > NEG / 2).sum() < (
+        lls_d[:, :KINDS * T] > NEG / 2).sum()
+
+
+def test_score_all_xla_production_width_matches_bruteforce():
+    """The scorer at the engine's production caps (template 44, read 39)
+    against a brute-force forward pass of each mutated template."""
+    rng = np.random.default_rng(12)
+    (args, _) = _simulate_batch(rng, 3, 4, 44, 39, tl_range=(26, 33))
+    tpl, tlen, snr, reads, rlens = args
+    lls, ll0 = score_all_xla(tpl, tlen, snr, reads, rlens, TABLES)
+    ll_direct = _forward_batch_scan(tpl, tlen, snr, reads, rlens,
+                                    TABLES).sum(-1)
+    np.testing.assert_allclose(np.asarray(ll0), np.asarray(ll_direct),
                                atol=2e-3)
-    valid = np.asarray(mutation_valid_new(tpl, tlen))
-    cand_eff = cand & (np.arange(T)[None, :] < np.asarray(tlen)[:, None])
-    bridged = np.zeros_like(valid)
-    for b in range(tpl.shape[0]):
-        for p in range(T):
-            if cand_eff[b, p]:
-                bridged[b, 9 * p:9 * p + 9] = True
-        bridged[b, 9 * T:] = True          # prepends always scored
-    lls_s_np = np.asarray(lls_s)
-    d = np.abs(np.where(valid & bridged,
-                        np.asarray(lls_x) - lls_s_np, 0.0))
-    assert d.max() < 5e-3
-    # unbridged regular slots return exactly 0
-    assert np.all(lls_s_np[:, :9 * T][~bridged[:, :9 * T]] == 0.0)
+    tpl_np, tlen_np, lls_np = np.asarray(tpl), np.asarray(tlen), \
+        np.asarray(lls)
+    T = tpl_np.shape[1]
+    rows, muts, mlen = [], [], []
+    for b in range(tpl_np.shape[0]):
+        t0 = tpl_np[b, :tlen_np[b]]
+        for m in rng.choice(KINDS * T, 60, replace=False):
+            if lls_np[b, m] < -1e29:
+                continue                      # invalid slot
+            p, k = divmod(int(m), KINDS)
+            mt = _apply_new_enum(t0, p, k)
+            pad = np.full(T, -1, np.int8)
+            pad[:len(mt)] = mt
+            rows.append((b, int(m)))
+            muts.append(pad)
+            mlen.append(len(mt))
+    bi = np.asarray([b for b, _ in rows])
+    ref = np.asarray(_forward_batch_scan(
+        jnp.asarray(np.stack(muts)), jnp.asarray(mlen, np.int32),
+        snr[bi], reads[bi], rlens[bi], TABLES).sum(-1))
+    got = np.asarray([lls_np[b, m] for b, m in rows])
+    assert len(rows) > 60
+    assert np.abs(ref - got).max() < 5e-3

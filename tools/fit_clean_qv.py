@@ -11,7 +11,7 @@ interpolates the cells the sample leaves empty, and the result is printed
 as the literal numpy constant to paste into pipeline/polish_fused.py.
 
 Run: JAX_PLATFORMS=cpu python tools/fit_clean_qv.py [--fast]
-(~40 min single-core at the default sample; --fast for a smoke run).
+(--fast for a smoke run).
 """
 
 from __future__ import annotations
@@ -84,7 +84,7 @@ def measure(fast: bool = False):
                 jnp.asarray(tpl), jnp.asarray(tlen), jnp.asarray(cs),
                 jnp.asarray(ce), jnp.asarray(sb), jnp.asarray(reads),
                 jnp.asarray(rl), tables, max_iters=30,
-                priority=jnp.asarray(pri), use_pallas=False)
+                priority=jnp.asarray(pri))
             p_err = np.asarray(p_err)
             fpri = np.asarray(state.priority)
             fcs = np.asarray(state.core_start)
